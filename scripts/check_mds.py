@@ -13,8 +13,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from plonky2_ecdsa_tpu.fields.goldilocks import P
-from plonky2_ecdsa_tpu.hash.poseidon import M4
+from plonky2_ecdsa.fields.goldilocks import P
+from plonky2_ecdsa.hash.poseidon import M4
 
 
 def all_minors_nonzero(M=None, verbose: bool = False):

@@ -5,8 +5,8 @@ Appendix B "Instantiation of round constants" / the reference
 generate_parameters_grain.sage), deliberately NOT sharing code with
 hash/poseidon.py's generator: this one keeps the 80-bit LFSR state as a
 single python int with bitmask taps, so the two derivations agree only if
-both implement the spec (VERDICT r3 next #6 — constants reproducible from
-spec, not trusted from one implementation).
+both implement the spec (constants reproducible from spec, not trusted
+from one implementation).
 
 Also re-runs, from scratch, the deterministic internal-diagonal search and
 the Poseidon2 paper's security condition for the internal linear layer
@@ -232,7 +232,7 @@ def main():
         print(f"wrote {len(rc)} constants + diag {diag} -> {VEC_PATH}")
         return
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir))
-    from plonky2_ecdsa_tpu.hash import poseidon
+    from plonky2_ecdsa.hash import poseidon
 
     assert rc == poseidon.ROUND_CONSTANTS, "round-constant derivation drift"
     assert ext_matrix() == poseidon.EXT_MATRIX, "external-matrix drift"

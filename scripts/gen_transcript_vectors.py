@@ -1,5 +1,5 @@
-"""Freeze proof-transcript vectors for the small demo circuit (VERDICT r2
-next #3: self-frozen transcript vectors so silent Fiat-Shamir/transcript
+"""Freeze proof-transcript vectors for the small demo circuit
+(self-frozen transcript vectors so silent Fiat-Shamir/transcript
 drift fails loudly).
 
 Unlike tests/vectors/*.json (independent implementation), these are
@@ -20,11 +20,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from plonky2_ecdsa_tpu.circuit.examples import small_demo_circuit, small_demo_witness
-from plonky2_ecdsa_tpu.fields import goldilocks as gl
-from plonky2_ecdsa_tpu.prover.data import build_circuit_data
-from plonky2_ecdsa_tpu.prover.prover import prove
-from plonky2_ecdsa_tpu.prover.verifier import verify
+from plonky2_ecdsa.circuit.examples import small_demo_circuit, small_demo_witness
+from plonky2_ecdsa.fields import goldilocks as gl
+from plonky2_ecdsa.prover.data import build_circuit_data
+from plonky2_ecdsa.prover.prover import prove
+from plonky2_ecdsa.prover.verifier import verify
 
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                    "tests", "vectors", "transcript_demo.json")

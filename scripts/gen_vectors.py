@@ -1,8 +1,8 @@
 """Generate tests/vectors/*.json golden vectors from an INDEPENDENT
-implementation (SURVEY.md §7 hard part 6; VERDICT r2 next #3).
+implementation (SURVEY.md §7 hard part 6).
 
 Everything below is computed with self-contained textbook formulas over
-Python ints — no imports from plonky2_ecdsa_tpu — so the frozen vectors
+Python ints — no imports from plonky2_ecdsa — so the frozen vectors
 cross-check the library rather than echo it.  Curve/GLV constants are the
 published secp256k1 / NIST P-256 domain parameters (unavoidably shared).
 

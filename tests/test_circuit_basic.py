@@ -3,10 +3,10 @@ witnesses, and verify every gate constraint over the witness matrix."""
 
 import numpy as np
 
-from plonky2_ecdsa_tpu.circuit.builder import CircuitBuilder
-from plonky2_ecdsa_tpu.circuit.config import CircuitConfig
-from plonky2_ecdsa_tpu.circuit.witness import check_constraints, gmul
-from plonky2_ecdsa_tpu.fields.goldilocks import P
+from plonky2_ecdsa.circuit.builder import CircuitBuilder
+from plonky2_ecdsa.circuit.config import CircuitConfig
+from plonky2_ecdsa.circuit.witness import check_constraints, gmul
+from plonky2_ecdsa.fields.goldilocks import P
 
 
 def test_arithmetic_circuit(rng):
@@ -119,8 +119,8 @@ def test_wide_ecc_config_ecdsa_constraints():
     src/gadgets/ecdsa.rs:163-181).  Builds the full secp256k1 verify circuit
     under the wide config and checks every constraint on a signature batch
     (~10 s with the native witness executor)."""
-    from plonky2_ecdsa_tpu import api
-    from plonky2_ecdsa_tpu.curve import native as cn
+    from plonky2_ecdsa import api
+    from plonky2_ecdsa.curve import native as cn
 
     system = api.EcdsaProverSystem(cn.SECP256K1, CircuitConfig.wide_ecc_config())
     stmts = api.random_statements(cn.SECP256K1, 2, seed=9)
@@ -132,8 +132,8 @@ def test_p256_ecdsa_circuit_constraints():
     src/gadgets/ecdsa.rs:55-78 + test_ecdsa_circuit p256 variants): builds the
     full circuit (4-bit windowed mul for u2*pk, no GLV) and checks every
     constraint on a signature batch."""
-    from plonky2_ecdsa_tpu import api
-    from plonky2_ecdsa_tpu.curve import native as cn
+    from plonky2_ecdsa import api
+    from plonky2_ecdsa.curve import native as cn
 
     system = api.EcdsaProverSystem(cn.P256)
     stmts = api.random_statements(cn.P256, 2, seed=10)

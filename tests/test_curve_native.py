@@ -5,8 +5,8 @@ curve_msm.rs:188-265, ecdsa.rs:64-84)."""
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.curve import native as cn
-from plonky2_ecdsa_tpu.hash.keccak import keccak256
+from plonky2_ecdsa.curve import native as cn
+from plonky2_ecdsa.hash.keccak import keccak256
 
 
 def rand_scalar(rng, curve):

@@ -1,18 +1,18 @@
 """Device-shaped witness sanitizer (utils/debug.py): honest witnesses report
 zero violations; corrupted range-pool values / lookup limbs / non-canonical
-wires are detected and classified.  TPU analogue of the reference CI's armed
+wires are detected and classified.  The analogue of the reference CI's armed
 debug assertions (continuous-integration.yml:47; biguint.rs:46-49)."""
 
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.circuit.examples import (nonnative_mul_chain_circuit,
+from plonky2_ecdsa.circuit.examples import (nonnative_mul_chain_circuit,
                                                 small_demo_witness)
-from plonky2_ecdsa_tpu.circuit.gates import RangeLookupGate
-from plonky2_ecdsa_tpu.utils.debug import assert_witness_ok, witness_violations
-from plonky2_ecdsa_tpu.api import int_to_limbs
-from plonky2_ecdsa_tpu.curve import native as cn
-from plonky2_ecdsa_tpu.fields.goldilocks import P
+from plonky2_ecdsa.circuit.gates import RangeLookupGate
+from plonky2_ecdsa.utils.debug import assert_witness_ok, witness_violations
+from plonky2_ecdsa.api import int_to_limbs
+from plonky2_ecdsa.curve import native as cn
+from plonky2_ecdsa.fields.goldilocks import P
 
 
 @pytest.fixture(scope="module")

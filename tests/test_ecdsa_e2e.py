@@ -9,11 +9,11 @@ the jitted device path)."""
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.api import EcdsaProverSystem, random_statements
-from plonky2_ecdsa_tpu.circuit.config import CircuitConfig, FriConfig
-from plonky2_ecdsa_tpu.curve import native as cn
-from plonky2_ecdsa_tpu.prover.prover import prove
-from plonky2_ecdsa_tpu.prover.verifier import verify, verify_one_exact
+from plonky2_ecdsa.api import EcdsaProverSystem, random_statements
+from plonky2_ecdsa.circuit.config import CircuitConfig, FriConfig
+from plonky2_ecdsa.curve import native as cn
+from plonky2_ecdsa.prover.prover import prove
+from plonky2_ecdsa.prover.verifier import verify, verify_one_exact
 
 
 @pytest.mark.slow
@@ -39,7 +39,7 @@ def test_secp256k1_ecdsa_prove_verify_e2e():
 def test_p256_ecdsa_prove_verify_e2e():
     """Full P-256 ECDSA verification circuit through FRI (windowed-mul path;
     reference parity: src/gadgets/ecdsa.rs:163-182 proves both curves).
-    VERDICT r2 weak #7: P-256 previously never got a real proof."""
+    P-256 gets a real proof, not only a constraint check."""
     cfg = CircuitConfig(fri=FriConfig(rate_bits=2, cap_height=1,
                                       num_query_rounds=6,
                                       proof_of_work_bits=0))

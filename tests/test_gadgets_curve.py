@@ -5,13 +5,13 @@ curve_fixed_base.rs:68-117, glv.rs:173-219, ecdsa.rs:80-182)."""
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.circuit.builder import CircuitBuilder
-from plonky2_ecdsa_tpu.circuit.config import CircuitConfig
-from plonky2_ecdsa_tpu.circuit.foreign import BITS, base_field, scalar_field
-from plonky2_ecdsa_tpu.circuit.witness import check_constraints
-from plonky2_ecdsa_tpu.curve import native as cn
-from plonky2_ecdsa_tpu.gadgets import curve as gc
-from plonky2_ecdsa_tpu.gadgets import nonnative as gn
+from plonky2_ecdsa.circuit.builder import CircuitBuilder
+from plonky2_ecdsa.circuit.config import CircuitConfig
+from plonky2_ecdsa.circuit.foreign import BITS, base_field, scalar_field
+from plonky2_ecdsa.circuit.witness import check_constraints
+from plonky2_ecdsa.curve import native as cn
+from plonky2_ecdsa.gadgets import curve as gc
+from plonky2_ecdsa.gadgets import nonnative as gn
 
 N = 9
 MASK = (1 << BITS) - 1

@@ -5,12 +5,12 @@ nonnative.rs:897-1087) with batched random + edge inputs."""
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.circuit import foreign
-from plonky2_ecdsa_tpu.circuit.builder import CircuitBuilder
-from plonky2_ecdsa_tpu.circuit.config import CircuitConfig
-from plonky2_ecdsa_tpu.circuit.witness import check_constraints
-from plonky2_ecdsa_tpu.gadgets import biguint as gb
-from plonky2_ecdsa_tpu.gadgets import nonnative as gn
+from plonky2_ecdsa.circuit import foreign
+from plonky2_ecdsa.circuit.builder import CircuitBuilder
+from plonky2_ecdsa.circuit.config import CircuitConfig
+from plonky2_ecdsa.circuit.witness import check_constraints
+from plonky2_ecdsa.gadgets import biguint as gb
+from plonky2_ecdsa.gadgets import nonnative as gn
 
 FF = foreign.secp256k1_base()
 M = FF.m

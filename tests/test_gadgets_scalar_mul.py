@@ -4,22 +4,22 @@ in curve_windowed_mul.rs:176-257, curve_msm.rs:81-137,
 curve_fixed_base.rs:68-117, glv.rs:173-219, and curve.rs:459-515.
 
 These paths were previously exercised only transitively through the full
-ECDSA circuits (VERDICT r1 missing #5)."""
+ECDSA circuits."""
 
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.circuit.builder import CircuitBuilder
-from plonky2_ecdsa_tpu.circuit.config import CircuitConfig
-from plonky2_ecdsa_tpu.circuit.foreign import BITS, scalar_field
-from plonky2_ecdsa_tpu.circuit.witness import check_constraints
-from plonky2_ecdsa_tpu.curve import native as cn
-from plonky2_ecdsa_tpu.gadgets import curve as gc
-from plonky2_ecdsa_tpu.gadgets import curve_fixed_base as gfb
-from plonky2_ecdsa_tpu.gadgets import curve_msm as gmsm
-from plonky2_ecdsa_tpu.gadgets import curve_windowed as gw
-from plonky2_ecdsa_tpu.gadgets import glv as gglv
-from plonky2_ecdsa_tpu.gadgets import nonnative as gn
+from plonky2_ecdsa.circuit.builder import CircuitBuilder
+from plonky2_ecdsa.circuit.config import CircuitConfig
+from plonky2_ecdsa.circuit.foreign import BITS, scalar_field
+from plonky2_ecdsa.circuit.witness import check_constraints
+from plonky2_ecdsa.curve import native as cn
+from plonky2_ecdsa.gadgets import curve as gc
+from plonky2_ecdsa.gadgets import curve_fixed_base as gfb
+from plonky2_ecdsa.gadgets import curve_msm as gmsm
+from plonky2_ecdsa.gadgets import curve_windowed as gw
+from plonky2_ecdsa.gadgets import glv as gglv
+from plonky2_ecdsa.gadgets import nonnative as gn
 
 N = 9
 MASK = (1 << BITS) - 1
@@ -164,7 +164,7 @@ def test_naive_scalar_mul_matches_native(rng):
 def test_fixed_base_catches_injected_table_bug(rng, monkeypatch):
     """Deliberately corrupt one precomputed fixed-base table entry; the
     oracle comparison must catch the silently-wrong constant table
-    (VERDICT r1 item 5 'catching a deliberately-injected table bug')."""
+    (a deliberately injected table bug)."""
     curve = cn.SECP256K1
     g = curve.generator()
     k = int.from_bytes(rng.bytes(40), "little") % curve.n
@@ -198,14 +198,14 @@ def test_fixed_base_catches_injected_table_bug(rng, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# Prove-through-FRI versions (VERDICT r2 missing #2 / next #4): the reference
+# Prove-through-FRI versions: the reference
 # proves every gadget path through the real prover (curve_windowed_mul.rs:
 # 176-257, curve_msm.rs:81-137, glv.rs:173-219, curve_fixed_base.rs:68-117);
 # constraint-check-only tests cannot catch prover/verifier-side bugs.
 # ---------------------------------------------------------------------------
 
 def _prove_cfg():
-    from plonky2_ecdsa_tpu.circuit.config import FriConfig
+    from plonky2_ecdsa.circuit.config import FriConfig
 
     # reduced FRI query count for CPU wall-time; still a real FRI proof
     return CircuitConfig(range_lookup_limb_bits=11, range_lookup_vals=28,
@@ -215,9 +215,9 @@ def _prove_cfg():
 
 
 def _prove_and_verify(build_fn, inputs, B, want):
-    from plonky2_ecdsa_tpu.prover.data import build_circuit_data
-    from plonky2_ecdsa_tpu.prover.prover import prove
-    from plonky2_ecdsa_tpu.prover.verifier import verify
+    from plonky2_ecdsa.prover.data import build_circuit_data
+    from plonky2_ecdsa.prover.prover import prove
+    from plonky2_ecdsa.prover.verifier import verify
 
     b = CircuitBuilder(_prove_cfg())
     build_fn(b)

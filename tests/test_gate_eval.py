@@ -1,14 +1,14 @@
 """Gate-level tests: stacked (prover) vs per-constraint (verifier) evaluation
-equivalence, and constraint-degree conformance — the TPU equivalents of the
+equivalence, and constraint-degree conformance — the equivalents of the
 reference's test_low_degree / test_eval_fns gate harness
 (src/gates/mul_nonnative.rs:549-579)."""
 
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.circuit import foreign
-from plonky2_ecdsa_tpu.circuit.algebra import BaseAlgebra
-from plonky2_ecdsa_tpu.circuit.gates import (
+from plonky2_ecdsa.circuit import foreign
+from plonky2_ecdsa.circuit.algebra import BaseAlgebra
+from plonky2_ecdsa.circuit.gates import (
     ArithmeticGate,
     BaseSum2Gate,
     BigCmpGate,
@@ -20,7 +20,7 @@ from plonky2_ecdsa_tpu.circuit.gates import (
     RandomAccessGate,
     RangeCheckGate,
 )
-from plonky2_ecdsa_tpu.fields import goldilocks as gl
+from plonky2_ecdsa.fields import goldilocks as gl
 
 P = gl.P
 FF = foreign.secp256k1_base()

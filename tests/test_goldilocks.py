@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.fields import goldilocks as gl
+from plonky2_ecdsa.fields import goldilocks as gl
 
 P = gl.P
 

@@ -6,12 +6,12 @@ misclassified (wide value in the narrow plane) table loudly."""
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.api import int_to_limbs
-from plonky2_ecdsa_tpu.circuit.examples import nonnative_mul_chain_circuit
-from plonky2_ecdsa_tpu.curve import native as cn
-from plonky2_ecdsa_tpu.prover.data import build_circuit_data
-from plonky2_ecdsa_tpu.prover.prover import _narrow_mask, make_jit_prover
-from plonky2_ecdsa_tpu.prover.verifier import verify
+from plonky2_ecdsa.api import int_to_limbs
+from plonky2_ecdsa.circuit.examples import nonnative_mul_chain_circuit
+from plonky2_ecdsa.curve import native as cn
+from plonky2_ecdsa.prover.data import build_circuit_data
+from plonky2_ecdsa.prover.prover import _narrow_mask, make_jit_prover
+from plonky2_ecdsa.prover.verifier import verify
 
 
 @pytest.fixture(scope="module")
@@ -47,12 +47,12 @@ def test_narrow_classification_sound_and_substantial(system):
 def test_misclassified_wide_value_falls_back_to_wide_path(system, capfd):
     """A >=2^32 value under a narrow-classified slot must NOT be silently
     truncated: the dispatch detects it, warns, and re-routes the batch
-    through the wide witness path (ADVICE r2: availability fallback instead
-    of a hard abort).  The injected value is semantically wrong for the
+    through the wide witness path (an availability fallback instead of a
+    hard abort).  The injected value is semantically wrong for the
     circuit, so the resulting proof must fail verification — proving the
     fallback shipped the REAL 64-bit value, not a truncation (a truncated
     witness here would differ from the honest one only above bit 32)."""
-    from plonky2_ecdsa_tpu.prover.verifier import verify
+    from plonky2_ecdsa.prover.verifier import verify
 
     c, data, vals = system
     run = make_jit_prover(data)

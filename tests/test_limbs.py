@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.fields import limbs as lb
+from plonky2_ecdsa.fields import limbs as lb
 
 SECP_P = 2**256 - 2**32 - 977
 SECP_N = 0xFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFFEBAAEDCE6AF48A03BBFD25E8CD0364141

@@ -1,10 +1,10 @@
 """Repo lint: ban negative-stride slicing / flips in device-code modules.
 
 Round-3 root cause (prover/prover.py _suffix_prod_exclusive docstring): the
-TPU toolchain miscompiles negative-stride reversed views feeding log-depth
-scans — deterministically wrong values at non-tile-aligned lengths.  The fix
+accelerator toolchain of that round miscompiled negative-stride reversed
+views feeding log-depth scans — deterministically wrong values at non-tile-aligned lengths.  The fix
 was a convention ("use mirrored positive-offset slices"); this test makes the
-convention a CI guard (VERDICT r3 next #4a): any `x[::-1]`-style slice or
+convention a CI guard: any `x[::-1]`-style slice or
 `flip(...)` call in a module that can run on device fails the fast suite.
 """
 
@@ -13,7 +13,7 @@ import pathlib
 
 import pytest
 
-PKG = pathlib.Path(__file__).resolve().parent.parent / "plonky2_ecdsa_tpu"
+PKG = pathlib.Path(__file__).resolve().parent.parent / "plonky2_ecdsa"
 
 # Modules whose code is (or can be) traced into a device computation.  Host-
 # only modules (circuit building, native oracles, serialization, CLI) are
@@ -61,7 +61,7 @@ def _violations(path):
 def test_no_reversed_views_in_device_code(path):
     bad = _violations(path)
     assert not bad, (
-        f"{path}: reversed views are banned in device code (TPU miscompile, "
+        f"{path}: reversed views are banned in device code (miscompile, "
         f"see prover._suffix_prod_exclusive): {bad}")
 
 

@@ -8,13 +8,13 @@ C++ toolchain is available (the numpy path is then the production path)."""
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.circuit import foreign
-from plonky2_ecdsa_tpu.circuit.builder import CircuitBuilder
-from plonky2_ecdsa_tpu.circuit.config import CircuitConfig
-from plonky2_ecdsa_tpu.circuit.witness import check_constraints
-from plonky2_ecdsa_tpu.fields import goldilocks as gl
-from plonky2_ecdsa_tpu.gadgets import nonnative as gn
-from plonky2_ecdsa_tpu.native import get_lib
+from plonky2_ecdsa.circuit import foreign
+from plonky2_ecdsa.circuit.builder import CircuitBuilder
+from plonky2_ecdsa.circuit.config import CircuitConfig
+from plonky2_ecdsa.circuit.witness import check_constraints
+from plonky2_ecdsa.fields import goldilocks as gl
+from plonky2_ecdsa.gadgets import nonnative as gn
+from plonky2_ecdsa.native import get_lib
 
 FF = foreign.secp256k1_base()
 M = FF.m
@@ -96,7 +96,7 @@ def test_native_scatter_pair_matches(rng):
 @needs_native
 def test_native_modular_inverse_edge_cases():
     """Binary-xgcd inverse: random + structured values against python pow."""
-    from plonky2_ecdsa_tpu.circuit import foreign as fr
+    from plonky2_ecdsa.circuit import foreign as fr
 
     for ff in (fr.secp256k1_base(), fr.secp256k1_scalar(),
                fr.p256_base(), fr.p256_scalar()):

@@ -1,15 +1,15 @@
 """Mesh-sharded prover tests on the 8-virtual-device CPU backend
-(SURVEY.md §4 TPU-build implication d: multi-host simulated via
+(multi-host simulated via
 --xla_force_host_platform_device_count)."""
 
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.circuit.examples import small_demo_circuit, small_demo_witness
-from plonky2_ecdsa_tpu.parallel.mesh import make_mesh_prover, prover_mesh
-from plonky2_ecdsa_tpu.prover.data import build_circuit_data
-from plonky2_ecdsa_tpu.prover.prover import prove
-from plonky2_ecdsa_tpu.prover.verifier import verify
+from plonky2_ecdsa.circuit.examples import small_demo_circuit, small_demo_witness
+from plonky2_ecdsa.parallel.mesh import make_mesh_prover, prover_mesh
+from plonky2_ecdsa.prover.data import build_circuit_data
+from plonky2_ecdsa.prover.prover import prove
+from plonky2_ecdsa.prover.verifier import verify
 
 
 @pytest.mark.slow
@@ -42,7 +42,7 @@ def test_two_level_mesh_prover():
     (SURVEY.md §7.6 2-level mesh; DCN simulated by virtual CPU devices)."""
     import jax
 
-    from plonky2_ecdsa_tpu.parallel.mesh import prover_mesh_2level
+    from plonky2_ecdsa.parallel.mesh import prover_mesh_2level
 
     assert len(jax.devices()) >= 8
     circuit = small_demo_circuit().build()
@@ -74,7 +74,7 @@ def test_dp_scaling_overhead():
     import jax
     import jax.numpy as jnp
 
-    from plonky2_ecdsa_tpu.prover.prover import Backend, host_prep, prove_core
+    from plonky2_ecdsa.prover.prover import Backend, host_prep, prove_core
 
     assert len(jax.devices()) >= 8
     circuit = small_demo_circuit().build()
@@ -134,16 +134,16 @@ def test_graft_entry_compiles():
 @pytest.mark.slow
 def test_two_level_mesh_production_shape():
     """(dcn, dp, col) mesh on the PRODUCTION ECDSA circuit shape (n=2^13,
-    128 wires, limb_bits=13, C=2; FRI queries reduced) — VERDICT r2 next #5:
+    128 wires, limb_bits=13, C=2; FRI queries reduced):
     the col-axis all_gathers must run against real shapes, bit-identical to
     the host prover.  The (dp, col) production case is the driver dryrun
     (__graft_entry__.dryrun_multichip)."""
     import jax
 
-    from plonky2_ecdsa_tpu import api
-    from plonky2_ecdsa_tpu.circuit.config import CircuitConfig, FriConfig
-    from plonky2_ecdsa_tpu.curve import native as cn
-    from plonky2_ecdsa_tpu.parallel.mesh import prover_mesh_2level
+    from plonky2_ecdsa import api
+    from plonky2_ecdsa.circuit.config import CircuitConfig, FriConfig
+    from plonky2_ecdsa.curve import native as cn
+    from plonky2_ecdsa.parallel.mesh import prover_mesh_2level
 
     assert len(jax.devices()) >= 8
     cfg = CircuitConfig(fri=FriConfig(rate_bits=2, cap_height=1,

@@ -4,8 +4,8 @@ p256_scalar.rs parity: constants, Fermat inversion, two-adic generators)."""
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.curve import native as cn
-from plonky2_ecdsa_tpu.fields.prime_field import (P256Base, P256Scalar,
+from plonky2_ecdsa.curve import native as cn
+from plonky2_ecdsa.fields.prime_field import (P256Base, P256Scalar,
                                                   Secp256K1Base,
                                                   Secp256K1Scalar)
 

@@ -7,14 +7,14 @@ import os
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.circuit.builder import CircuitBuilder
-from plonky2_ecdsa_tpu.circuit.config import CircuitConfig
-from plonky2_ecdsa_tpu.fields import goldilocks as gl
-from plonky2_ecdsa_tpu.hash import merkle, poseidon
-from plonky2_ecdsa_tpu.prover import ntt
-from plonky2_ecdsa_tpu.prover.data import build_circuit_data
-from plonky2_ecdsa_tpu.prover.prover import prove
-from plonky2_ecdsa_tpu.prover.verifier import verify, verify_strict
+from plonky2_ecdsa.circuit.builder import CircuitBuilder
+from plonky2_ecdsa.circuit.config import CircuitConfig
+from plonky2_ecdsa.fields import goldilocks as gl
+from plonky2_ecdsa.hash import merkle, poseidon
+from plonky2_ecdsa.prover import ntt
+from plonky2_ecdsa.prover.data import build_circuit_data
+from plonky2_ecdsa.prover.prover import prove
+from plonky2_ecdsa.prover.verifier import verify, verify_strict
 
 P = gl.P
 
@@ -188,7 +188,7 @@ def test_verify_rejects_tampered_initial_leaf():
 def test_challenger_pow_grind_roundtrip():
     """grind() and check_pow() agree and keep prover/verifier transcripts in
     sync (plonky2 FRI proof_of_work_bits protocol step)."""
-    from plonky2_ecdsa_tpu.prover.challenger import Challenger
+    from plonky2_ecdsa.prover.challenger import Challenger
 
     ch = Challenger(np, (3,))
     ch.observe(gl.from_int(12345, (3,)))
@@ -211,7 +211,7 @@ def test_grind_compacted_matches_numpy():
     strictly in order), so np/jnp proofs stay bit-identical."""
     import jax.numpy as jnp
 
-    from plonky2_ecdsa_tpu.prover.challenger import Challenger
+    from plonky2_ecdsa.prover.challenger import Challenger
 
     B = 12
     seed = gl.from_int(987654, (B,))
@@ -229,55 +229,6 @@ def test_grind_compacted_matches_numpy():
 
 
 @pytest.mark.slow
-def test_grind_pallas_kernel_matches_numpy():
-    """The Mosaic grind kernel (interpret mode) returns the numpy sweep's
-    exact first-hit witnesses for per-lane-distinct duplex states."""
-    import jax.numpy as jnp
-
-    from plonky2_ecdsa_tpu.hash.poseidon_pallas import grind_pallas
-    from plonky2_ecdsa_tpu.prover.challenger import Challenger
-
-    B = 6
-    vals = np.arange(B, dtype=np.uint64) * np.uint64(97531) + np.uint64(11)
-    seed = gl.from_u64(vals)
-    ch = Challenger(np, (B,))
-    ch.observe(seed)
-    w_np = ch.grind(8)
-    ch2 = Challenger(np, (B,))
-    ch2.observe(seed)
-    ch2._duplex()
-    lo = np.stack([s[0] for s in ch2.state])
-    hi = np.stack([s[1] for s in ch2.state])
-    w, found = grind_pallas(jnp.asarray(lo), jnp.asarray(hi), 8,
-                            interpret=True)
-    assert np.asarray(found).all()
-    assert np.array_equal(np.asarray(w), w_np[0])
-
-
-@pytest.mark.slow
-def test_grind_pallas_exhaustion_flag():
-    """Exhausting the candidate cap reports found=False (ADVICE r4) instead
-    of a silent w=0; the collect-side sentinel check raises on it."""
-    import jax.numpy as jnp
-
-    from plonky2_ecdsa_tpu.hash.poseidon_pallas import GRIND_BLOCK, grind_pallas
-    from plonky2_ecdsa_tpu.prover.challenger import Challenger
-
-    B = 2
-    seed = gl.from_u64(np.array([5, 6], np.uint64))
-    ch = Challenger(np, (B,))
-    ch.observe(seed)
-    ch._duplex()
-    lo = np.stack([s[0] for s in ch.state])
-    hi = np.stack([s[1] for s in ch.state])
-    # 26 leading-zero bits in one GRIND_BLOCK of candidates: miss (expected
-    # hits ~= 1024 * 2^-26; deterministic for this fixed seed — verified)
-    w, found = grind_pallas(jnp.asarray(lo), jnp.asarray(hi), 26,
-                            max_candidates=GRIND_BLOCK, interpret=True)
-    assert not np.asarray(found).any()
-
-
-@pytest.mark.slow
 def test_preflight_frozen_digests_match_recomputed():
     """tests/vectors/preflight_digests.json (the bench preflight's frozen
     numpy references) still matches a from-scratch recomputation — guards
@@ -286,7 +237,7 @@ def test_preflight_frozen_digests_match_recomputed():
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    import scripts.tpu_checks as t
+    import scripts.device_parity as t
 
     with open(t._PREFLIGHT_VECTORS) as f:
         frozen = json.load(f)
@@ -314,24 +265,9 @@ def test_verify_rejects_tampered_pow_witness():
 
 
 @pytest.mark.slow
-def test_poseidon_pallas_interpret(rng):
-    """Mosaic kernel math == jnp/numpy permutation (interpret mode on CPU)."""
-    import jax.numpy as jnp
-
-    from plonky2_ecdsa_tpu.hash.poseidon_pallas import permute_stacked_pallas
-
-    v = rng.integers(0, P, size=(12, 5), dtype=np.uint64)
-    lo, hi = gl.from_u64(v)
-    ref = poseidon.permute_stacked(lo, hi)
-    out = permute_stacked_pallas(jnp.asarray(lo), jnp.asarray(hi), interpret=True)
-    assert np.array_equal(np.asarray(out[0]), ref[0])
-    assert np.array_equal(np.asarray(out[1]), ref[1])
-
-
-@pytest.mark.slow
 def test_batched_verifier_matches_exact():
     """The vectorized verifier and the python-int reference path agree."""
-    from plonky2_ecdsa_tpu.prover.verifier import verify_one_exact
+    from plonky2_ecdsa.prover.verifier import verify_one_exact
 
     data, proof, c = _prove_small(2)
     verify_strict(data, proof)
@@ -389,7 +325,7 @@ def test_poseidon_grain_constants_pinned():
 
 
 def test_poseidon_constants_from_spec():
-    """Constants-drift guard (VERDICT r3 next #6): the package's Grain-LFSR
+    """Constants-drift guard: the package's Grain-LFSR
     round constants + Poseidon2 matrices must match BOTH the frozen vector
     file and a from-scratch re-derivation by the independent generator in
     scripts/gen_poseidon_constants.py (int-state LFSR, no shared code), so
@@ -432,7 +368,7 @@ def test_streaming_wire_commit_matches_plain(rng):
     (live for wide_ecc_config's 234 wires)."""
     import jax.numpy as jnp
 
-    from plonky2_ecdsa_tpu.prover.prover import _lde_commit, _lde_commit_wires_stream
+    from plonky2_ecdsa.prover.prover import _lde_commit, _lde_commit_wires_stream
 
     n, N, caph = 32, 128, 2
     for k in (16, 10):  # multiple-of-rate and remainder paths
@@ -481,14 +417,14 @@ def test_merkle_open_packed_matches_loop(rng):
 def test_streamed_zs_branch_b48_matches_numpy():
     """prove_core switches to the streaming zs commit purely on batch size
     (B >= 48, prover.py); before this test the branch's only exercise was the
-    on-chip B=64 bench (VERDICT r3 weak #3 — the exact scale-gated untested
-    class that produced the r2 regression).  Drive it on CPU-backend JAX at
+    on-device B=64 bench (the scale-gated untested class of code that once
+    hid a regression).  Drive it on CPU-backend JAX at
     B=48 and require the full proof bit-identical to the numpy path (which
     always uses the unstreamed commit)."""
     import jax
     import jax.numpy as jnp
 
-    from plonky2_ecdsa_tpu.prover.prover import _register_pytrees
+    from plonky2_ecdsa.prover.prover import _register_pytrees
 
     _register_pytrees()
     B = 48
@@ -510,75 +446,15 @@ def test_streamed_zs_branch_b48_matches_numpy():
         assert np.array_equal(np.asarray(r), np.asarray(g)), f"leaf {i} differs"
 
 
-@pytest.mark.slow
-def test_ntt_pallas_sub_ntt_interpret(rng):
-    """Fused sub-NTT Mosaic kernel (in-VMEM bitrev + all stages) == numpy
-    sub-NTT (interpret mode on CPU)."""
-    import jax.numpy as jnp
-
-    from plonky2_ecdsa_tpu.prover import ntt_pallas
-
-    for n_t, L in [(16, 128), (128, 256)]:
-        vals = rng.integers(0, P, size=(2, n_t, L), dtype=np.uint64) % np.uint64(P)
-        pair = gl.from_u64(vals)
-        for inverse in (False, True):
-            want = ntt._ntt_axis2(pair[0], pair[1], n_t, inverse, np)
-            tabs = tuple(jnp.asarray(a) for a in ntt_pallas.stage_tables(n_t, inverse))
-            got = ntt_pallas.sub_ntt(jnp.asarray(pair[0]), jnp.asarray(pair[1]),
-                                     n_t, tabs, interpret=True)
-            assert np.array_equal(np.asarray(got[0]), want[0]), (n_t, L, inverse)
-            assert np.array_equal(np.asarray(got[1]), want[1]), (n_t, L, inverse)
-
-
-@pytest.mark.slow
-def test_ntt_pallas_four_step_interpret(rng):
-    """Full fused four-step (two kernels + transpose) == numpy ntt, both
-    directions, including the folded 1/n and the compact-coefficient coset
-    LDE path (zero rows synthesized in VMEM)."""
-    import jax.numpy as jnp
-
-    from plonky2_ecdsa_tpu.prover import ntt_pallas
-
-    n = 1 << 14
-    vals = rng.integers(0, P, size=(2, n), dtype=np.uint64) % np.uint64(P)
-    lo, hi = gl.from_u64(vals)
-    for inverse in (False, True):
-        want = ntt.ntt(lo, hi, inverse=inverse)
-        got = ntt_pallas.four_step(jnp.asarray(lo), jnp.asarray(hi), n,
-                                   inverse, interpret=True)
-        assert np.array_equal(np.asarray(got[0]), want[0]), inverse
-        assert np.array_equal(np.asarray(got[1]), want[1]), inverse
-
-    # compact coset LDE: k = n/4 coefficients -> N = n evals
-    k = n >> 2
-    clo, chi = lo[..., :k], hi[..., :k]
-    want = ntt.coset_ntt_from_coeffs(clo, chi, n)
-    pw = gl.from_u64(ntt._coset_powers(n, False))
-    got = ntt_pallas.four_step(jnp.asarray(clo), jnp.asarray(chi), n, False,
-                               pre=(jnp.asarray(pw[0][:k]), jnp.asarray(pw[1][:k])),
-                               interpret=True)
-    assert np.array_equal(np.asarray(got[0]), want[0])
-    assert np.array_equal(np.asarray(got[1]), want[1])
-
-    # coset INTT with the folded output scale
-    want = ntt.coset_intt(lo, hi)
-    pwi = gl.from_u64(ntt._coset_powers(n, True))
-    got = ntt_pallas.four_step(jnp.asarray(lo), jnp.asarray(hi), n, True,
-                               post=(jnp.asarray(pwi[0]), jnp.asarray(pwi[1])),
-                               interpret=True)
-    assert np.array_equal(np.asarray(got[0]), want[0])
-    assert np.array_equal(np.asarray(got[1]), want[1])
-
-
 def test_prefix_suffix_scans_and_batch_inverse(rng):
     """Semantics of the log-depth scans + Montgomery batch inverse at the
     production LogUp width k=155 (round-3 regression: the old reversed-view
-    suffix scan miscompiled on TPU at exactly this non-tile-aligned width;
-    scripts/tpu_checks.py carries the on-device parity guard)."""
+    suffix scan was miscompiled at exactly this non-tile-aligned width;
+    scripts/device_parity.py carries the on-device parity guard)."""
     import jax
     import jax.numpy as jnp
 
-    from plonky2_ecdsa_tpu.prover.prover import (
+    from plonky2_ecdsa.prover.prover import (
         _batch_inverse_axis1, _prefix_prod_exclusive, _suffix_prod_exclusive)
 
     for k in (1, 2, 20, 155):
@@ -608,66 +484,3 @@ def test_prefix_suffix_scans_and_batch_inverse(rng):
              jnp.asarray(pair[1].transpose(0, 2, 1))))
         assert np.array_equal(np.asarray(jinv[0]), inv_np[0])
         assert np.array_equal(np.asarray(jinv[1]), inv_np[1])
-
-
-@pytest.mark.slow
-def test_ntt_pallas_production_shapes_interpret(rng):
-    """Interpret-mode parity at every four-step shape class the shipping
-    ECDSA prover hits (VERDICT r2 weak #2): n=2^13 (64x128 split) value<->
-    coeff transforms, the asymmetric N=2^15 (128x256) LDE domain, and the
-    compact-coefficient coset LDE k=2^13 -> N=2^15 (zero rows in VMEM)."""
-    import jax.numpy as jnp
-
-    from plonky2_ecdsa_tpu.prover import ntt_pallas
-
-    for n in (1 << 13, 1 << 15):
-        vals = rng.integers(0, P, size=(2, n), dtype=np.uint64)
-        lo, hi = gl.from_u64(vals)
-        for inverse in (False, True):
-            want = ntt.ntt(lo, hi, inverse=inverse)
-            got = ntt_pallas.four_step(jnp.asarray(lo), jnp.asarray(hi), n,
-                                       inverse, interpret=True)
-            assert np.array_equal(np.asarray(got[0]), want[0]), (n, inverse)
-            assert np.array_equal(np.asarray(got[1]), want[1]), (n, inverse)
-
-    # the production LDE: k=2^13 coefficients -> N=2^15 coset evals (rate 4)
-    n, N = 1 << 13, 1 << 15
-    vals = rng.integers(0, P, size=(2, n), dtype=np.uint64)
-    clo, chi = gl.from_u64(vals)
-    want = ntt.coset_ntt_from_coeffs(clo, chi, N)
-    pw = gl.from_u64(ntt._coset_powers(N, False))
-    got = ntt_pallas.four_step(jnp.asarray(clo), jnp.asarray(chi), N, False,
-                               pre=(jnp.asarray(pw[0][:n]), jnp.asarray(pw[1][:n])),
-                               interpret=True)
-    assert np.array_equal(np.asarray(got[0]), want[0])
-    assert np.array_equal(np.asarray(got[1]), want[1])
-
-    # coset INTT at the production quotient domain
-    vals = rng.integers(0, P, size=(2, N), dtype=np.uint64)
-    lo, hi = gl.from_u64(vals)
-    want = ntt.coset_intt(lo, hi)
-    pwi = gl.from_u64(ntt._coset_powers(N, True))
-    got = ntt_pallas.four_step(jnp.asarray(lo), jnp.asarray(hi), N, True,
-                               post=(jnp.asarray(pwi[0]), jnp.asarray(pwi[1])),
-                               interpret=True)
-    assert np.array_equal(np.asarray(got[0]), want[0])
-    assert np.array_equal(np.asarray(got[1]), want[1])
-
-
-@pytest.mark.slow
-def test_poseidon_pallas_multiblock_interpret(rng):
-    """Multi-block Poseidon grids (num_blocks >= 2, the production leaf-hash
-    shape class) in interpret mode; previous coverage stopped at one block."""
-    import jax.numpy as jnp
-
-    from plonky2_ecdsa_tpu.hash.poseidon_pallas import (
-        BLOCK_SUBLANES, permute_stacked_pallas)
-
-    m = BLOCK_SUBLANES * 128 + 777  # 2 blocks, ragged pad
-    v = rng.integers(0, P, (12, m), dtype=np.uint64)
-    lo, hi = gl.from_u64(v)
-    ref = poseidon.permute_stacked(lo, hi)
-    out = permute_stacked_pallas(jnp.asarray(lo), jnp.asarray(hi),
-                                 interpret=True)
-    assert np.array_equal(np.asarray(out[0]), ref[0])
-    assert np.array_equal(np.asarray(out[1]), ref[1])

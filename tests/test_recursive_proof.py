@@ -1,4 +1,4 @@
-"""Real recursion: proof-of-a-proof (VERDICT r3 next #2).
+"""Real recursion: proof-of-a-proof.
 
 The outer circuit re-runs the ENTIRE verifier in-circuit — Fiat-Shamir
 transcript via PoseidonGate rows (challenger_circuit.CircuitChallenger),
@@ -16,18 +16,18 @@ import copy
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.circuit.builder import CircuitBuilder
-from plonky2_ecdsa_tpu.circuit.config import CircuitConfig, FriConfig
-from plonky2_ecdsa_tpu.circuit.poseidon_gate import PoseidonGate, poseidon_permute
-from plonky2_ecdsa_tpu.circuit.recursive_verifier import (
+from plonky2_ecdsa.circuit.builder import CircuitBuilder
+from plonky2_ecdsa.circuit.config import CircuitConfig, FriConfig
+from plonky2_ecdsa.circuit.poseidon_gate import PoseidonGate, poseidon_permute
+from plonky2_ecdsa.circuit.recursive_verifier import (
     aggregation_inputs, build_aggregation_verifier, build_recursive_verifier,
     recursive_verifier_inputs, split_proof_lanes)
-from plonky2_ecdsa_tpu.circuit.witness import check_constraints
-from plonky2_ecdsa_tpu.fields import goldilocks as gl
-from plonky2_ecdsa_tpu.hash import poseidon
-from plonky2_ecdsa_tpu.prover.data import build_circuit_data
-from plonky2_ecdsa_tpu.prover.prover import prove
-from plonky2_ecdsa_tpu.prover.verifier import verify, verify_one_exact
+from plonky2_ecdsa.circuit.witness import check_constraints
+from plonky2_ecdsa.fields import goldilocks as gl
+from plonky2_ecdsa.hash import poseidon
+from plonky2_ecdsa.prover.data import build_circuit_data
+from plonky2_ecdsa.prover.prover import prove
+from plonky2_ecdsa.prover.verifier import verify, verify_one_exact
 
 P = gl.P
 
@@ -102,7 +102,7 @@ def test_poseidon_gate_matches_hash_oracle():
 
 def test_poseidon_gate_requires_rate8_config():
     """A degree-7 gate under a blowup-4 config must be rejected at
-    build_circuit_data (ADVICE r4: it used to silently produce proofs that
+    build_circuit_data (it used to silently produce proofs that
     fail verification with an unrelated-looking FRI/quotient error)."""
     cfg = CircuitConfig(
         num_wires=136, num_routed_wires=80, num_constant_cols=2,
@@ -190,9 +190,9 @@ def test_recursive_proof_e2e():
 
 @pytest.mark.slow
 def test_recursive_ecdsa_proof():
-    """Recursive verification of the PRODUCTION secp256k1 ECDSA proof
-    (VERDICT r4 next #1): build the verifier circuit for the n=2^13 /
-    128-wire / LogUp / 42-query / 16-PoW-bit circuit, prove an ECDSA batch,
+    """Recursive verification of the PRODUCTION secp256k1 ECDSA proof:
+    build the verifier circuit for the n=2^13 / 128-wire / LogUp /
+    42-query / 16-PoW-bit circuit, prove an ECDSA batch,
     feed the proof as outer witness, FRI-prove the verifier circuit, verify
     natively, and check the 45 statement limbs are re-exported as outer
     public inputs.  The outer FRI config is reduced for CPU wall-time; the
@@ -201,8 +201,8 @@ def test_recursive_ecdsa_proof():
     outer circuit — only the outer proving cost differs."""
     import time
 
-    from plonky2_ecdsa_tpu import api
-    from plonky2_ecdsa_tpu.curve import native as cn
+    from plonky2_ecdsa import api
+    from plonky2_ecdsa.curve import native as cn
 
     B = 1
     t0 = time.time()
@@ -272,7 +272,7 @@ def _agg_outer_config() -> CircuitConfig:
 
 @pytest.mark.slow
 def test_aggregation_tree_4_to_1():
-    """2-to-1 proof aggregation (VERDICT r4 next #2): one outer circuit
+    """2-to-1 proof aggregation: one outer circuit
     verifies TWO inner proof lanes and re-exports both statements' public
     inputs; folding 4 demo proofs -> 2 -> 1 through two recursion levels
     yields ONE proof whose public inputs bind all four statements."""

@@ -3,17 +3,17 @@ serialization checkpoint analogue, SURVEY.md §5)."""
 
 import numpy as np
 
-from plonky2_ecdsa_tpu.circuit.examples import small_demo_circuit, small_demo_witness
-from plonky2_ecdsa_tpu.prover.data import build_circuit_data
-from plonky2_ecdsa_tpu.prover.prover import prove
-from plonky2_ecdsa_tpu.prover.serialize import (
+from plonky2_ecdsa.circuit.examples import small_demo_circuit, small_demo_witness
+from plonky2_ecdsa.prover.data import build_circuit_data
+from plonky2_ecdsa.prover.prover import prove
+from plonky2_ecdsa.prover.serialize import (
     attach_template,
     load_circuit_data,
     load_proof,
     save_circuit_data,
     save_proof,
 )
-from plonky2_ecdsa_tpu.prover.verifier import verify
+from plonky2_ecdsa.prover.verifier import verify
 
 
 def test_circuit_data_roundtrip_proves(tmp_path):

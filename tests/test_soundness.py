@@ -4,20 +4,20 @@ The reference gets soundness coverage implicitly by FRI-proving every gadget
 test (SURVEY.md §4); this repo's gadget tests are constraint-check-only, so
 these tests explicitly corrupt witnesses (nonnative q/r/carry wires, range
 lookup out-of-range values) and structurally malform proofs, asserting
-prove-or-verify rejection (VERDICT r1 items 6 and 9)."""
+prove-or-verify rejection."""
 
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu.circuit.builder import CircuitBuilder
-from plonky2_ecdsa_tpu.circuit.config import CircuitConfig
-from plonky2_ecdsa_tpu.circuit.examples import (nonnative_mul_chain_circuit,
+from plonky2_ecdsa.circuit.builder import CircuitBuilder
+from plonky2_ecdsa.circuit.config import CircuitConfig
+from plonky2_ecdsa.circuit.examples import (nonnative_mul_chain_circuit,
                                                 small_demo_circuit,
                                                 small_demo_witness)
-from plonky2_ecdsa_tpu.circuit.gates import MulNonNativeGate
-from plonky2_ecdsa_tpu.prover.data import build_circuit_data
-from plonky2_ecdsa_tpu.prover.prover import prove
-from plonky2_ecdsa_tpu.prover.verifier import verify
+from plonky2_ecdsa.circuit.gates import MulNonNativeGate
+from plonky2_ecdsa.prover.data import build_circuit_data
+from plonky2_ecdsa.prover.prover import prove
+from plonky2_ecdsa.prover.verifier import verify
 
 
 def _mul_chain_setup(rng):
@@ -85,7 +85,7 @@ def test_malformed_proofs_return_false(rng):
     proofs: truncated arrays, wrong dtypes/ranks, dropped fields."""
     import jax
 
-    from plonky2_ecdsa_tpu.prover.prover import _register_pytrees
+    from plonky2_ecdsa.prover.prover import _register_pytrees
 
     _register_pytrees()
     c = small_demo_circuit().build()

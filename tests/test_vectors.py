@@ -1,4 +1,4 @@
-"""Frozen golden-vector suite (SURVEY.md §7 hard part 6; VERDICT r2 next #3).
+"""Frozen golden-vector suite (SURVEY.md §7 hard part 6).
 
 tests/vectors/*.json are generated by scripts/gen_vectors.py from a
 SELF-CONTAINED textbook implementation (pure Python ints, no library
@@ -14,11 +14,11 @@ import os
 import numpy as np
 import pytest
 
-from plonky2_ecdsa_tpu import api
-from plonky2_ecdsa_tpu.curve import native as cn
-from plonky2_ecdsa_tpu.fields import goldilocks as gl
-from plonky2_ecdsa_tpu.fields import limbs as fl
-from plonky2_ecdsa_tpu.fields import prime_field as pf
+from plonky2_ecdsa import api
+from plonky2_ecdsa.curve import native as cn
+from plonky2_ecdsa.fields import goldilocks as gl
+from plonky2_ecdsa.fields import limbs as fl
+from plonky2_ecdsa.fields import prime_field as pf
 
 VEC = os.path.join(os.path.dirname(__file__), "vectors")
 
@@ -50,7 +50,7 @@ def test_goldilocks_vectors():
 
 
 def test_goldilocks_vectors_u32_interior():
-    """Same vectors through the forced u32-pair interior (the TPU path)."""
+    """Same vectors through the forced u32-pair interior (the u32-pair device formulation)."""
     old = gl._FORCE_U32
     gl._FORCE_U32 = True
     try:
@@ -156,10 +156,10 @@ def test_transcript_frozen_vectors():
     any silent drift in Poseidon constants, absorb order, challenge
     squeezing, FRI schedule, PoW grind or index sampling fails here.
     Regenerate ONLY for a conscious protocol change."""
-    from plonky2_ecdsa_tpu.circuit.examples import (small_demo_circuit,
+    from plonky2_ecdsa.circuit.examples import (small_demo_circuit,
                                                     small_demo_witness)
-    from plonky2_ecdsa_tpu.prover.data import build_circuit_data
-    from plonky2_ecdsa_tpu.prover.prover import prove
+    from plonky2_ecdsa.prover.data import build_circuit_data
+    from plonky2_ecdsa.prover.prover import prove
 
     want = load("transcript_demo.json")
     circuit = small_demo_circuit().build()
